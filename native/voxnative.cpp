@@ -2,19 +2,14 @@
 //
 // The reference's host runtime is native (Rust): its hot loop converts
 // voxel lists into the GPU octree (src/context.rs:710-773).  This is the
-// TPU build's equivalent native path: one pass from a voxel list to the
-// device tables (dense int32 grid, 3x10-bit packed palette-index words,
-// block distance field) that the Pallas kernel consumes.  Python falls
-// back to the numpy implementation when the library isn't built; both
-// must produce bit-identical tables (tests/test_native.py).
+// equivalent native path here: one pass from a voxel list to the dense
+// int32 grid the trace kernels march, and the .vox XYZI decode.  Python
+// falls back to the numpy implementation when the library isn't built;
+// both must produce bit-identical results (tests/test_native.py).
 //
 // Build: make -C native   (produces libvoxnative.so; ctypes loads it)
 
 #include <cstdint>
-#include <algorithm>
-#include <cstring>
-#include <unordered_map>
-#include <vector>
 
 extern "C" {
 
@@ -33,119 +28,6 @@ void vox_fill_grid(const int16_t* pos, const int32_t* leaf, int64_t n,
     if (x < 0 || y < 0 || z < 0 || x >= dx || y >= dy || z >= dz) continue;
     grid[(x * dy + y) * dz + z] = leaf[i];
   }
-}
-
-// Map grid values to palette slots and pack 3 consecutive-z 10-bit
-// slots per int32 word (word address (x*dy + y)*zw + z/3).  Occupied
-// cells get palette slots starting at `reserved`; empty cells store
-// their capped chebyshev jump distance (dist, same extent as grid) in
-// slots 1..reserved-1.
-//   palette: out, cap int32 slots (slots 0..reserved-1 stay 0); returns
-//            the number of distinct values, or -1 on palette overflow.
-int64_t vox_pack_words(const int32_t* grid, const uint8_t* dist, int64_t dx,
-                       int64_t dy, int64_t dz, int32_t* palette, int64_t cap,
-                       int64_t reserved,
-                       int32_t* words /* dx*dy*zw, zeroed */) {
-  const int64_t zw = (dz + 2) / 3;
-  std::unordered_map<int32_t, int32_t> slot_of;
-  slot_of.reserve(1024);
-  // Slot numbering must match the numpy path: slots ordered by SORTED
-  // unique value.  Two passes: collect uniques, sort, assign.
-  std::vector<int32_t> uniq;
-  {
-    std::unordered_map<int32_t, bool> seen;
-    seen.reserve(4096);
-    const int64_t total = dx * dy * dz;
-    for (int64_t i = 0; i < total; ++i) {
-      int32_t v = grid[i];
-      if (v != 0 && !seen[v]) {
-        seen[v] = true;
-        uniq.push_back(v);
-      }
-    }
-  }
-  if ((int64_t)uniq.size() >= cap - reserved) return -1;
-  std::sort(uniq.begin(), uniq.end());
-  for (size_t i = 0; i < uniq.size(); ++i) {
-    palette[reserved + i] = uniq[i];
-    slot_of[uniq[i]] = (int32_t)(reserved + i);
-  }
-
-  for (int64_t x = 0; x < dx; ++x) {
-    for (int64_t y = 0; y < dy; ++y) {
-      const int64_t base = (x * dy + y) * dz;
-      const int32_t* col = grid + base;
-      const uint8_t* dcol = dist + base;
-      int32_t* wout = words + (x * dy + y) * zw;
-      for (int64_t z = 0; z < dz; ++z) {
-        int32_t v = col[z];
-        uint32_t slot = v != 0 ? (uint32_t)slot_of[v] : (uint32_t)dcol[z];
-        wout[z / 3] =
-            (int32_t)((uint32_t)wout[z / 3] | (slot << (10 * (z % 3))));
-      }
-    }
-  }
-  return (int64_t)uniq.size();
-}
-
-// Block-level chebyshev distance field: for each (2^shift)^3 block, the
-// capped max-norm distance to the nearest occupied block (0 = occupied).
-// Exact two-pass chamfer (all 3x3x3 mask weights are 1 under the
-// chessboard metric, so forward+backward raster passes suffice).
-// out must be sized bx*by*bz (uint8).
-void vox_block_dist(const int32_t* grid, int64_t dx, int64_t dy, int64_t dz,
-                    int32_t shift, int32_t cap, uint8_t* out) {
-  const int64_t bx = ((dx - 1) >> shift) + 1;
-  const int64_t by = ((dy - 1) >> shift) + 1;
-  const int64_t bz = ((dz - 1) >> shift) + 1;
-  std::vector<uint16_t> d(bx * by * bz, (uint16_t)(cap + 1));
-  for (int64_t x = 0; x < dx; ++x) {
-    for (int64_t y = 0; y < dy; ++y) {
-      const int32_t* col = grid + (x * dy + y) * dz;
-      uint16_t* drow = d.data() + ((x >> shift) * by + (y >> shift)) * bz;
-      for (int64_t z = 0; z < dz; ++z) {
-        if (col[z] != 0) drow[z >> shift] = 0;
-      }
-    }
-  }
-  auto relax_half = [&](bool forward) {
-    const int64_t i0 = forward ? 0 : bx - 1, i1 = forward ? bx : -1;
-    const int64_t step = forward ? 1 : -1;
-    for (int64_t i = i0; i != i1; i += step) {
-      for (int64_t j = forward ? 0 : by - 1; j != (forward ? by : -1);
-           j += step) {
-        for (int64_t k = forward ? 0 : bz - 1; k != (forward ? bz : -1);
-             k += step) {
-          uint16_t best = d[(i * by + j) * bz + k];
-          if (best == 0) continue;
-          for (int64_t di = -1; di <= 1; ++di) {
-            for (int64_t dj = -1; dj <= 1; ++dj) {
-              for (int64_t dk = -1; dk <= 1; ++dk) {
-                // half-neighborhood: cells already finalized in this
-                // raster direction
-                int64_t ord = forward ? (di * 9 + dj * 3 + dk)
-                                      : -(di * 9 + dj * 3 + dk);
-                if (ord >= 0) continue;
-                int64_t ni = i + di, nj = j + dj, nk = k + dk;
-                if (ni < 0 || nj < 0 || nk < 0 || ni >= bx || nj >= by ||
-                    nk >= bz)
-                  continue;
-                uint16_t cand =
-                    (uint16_t)(d[(ni * by + nj) * bz + nk] + 1);
-                if (cand < best) best = cand;
-              }
-            }
-          }
-          d[(i * by + j) * bz + k] = best;
-        }
-      }
-    }
-  };
-  relax_half(true);
-  relax_half(false);
-  const int64_t total = bx * by * bz;
-  for (int64_t i = 0; i < total; ++i)
-    out[i] = (uint8_t)std::min<uint16_t>(d[i], (uint16_t)cap);
 }
 
 // Decode a MagicaVoxel XYZI payload (n * [x y z ci] bytes) into engine

@@ -226,48 +226,58 @@ def test_cli_headless_render(tmp_path):
     assert data[:8] == b"\x89PNG\r\n\x1a\n"
 
 
-def test_renderer_falls_back_for_oversized_scene(monkeypatch):
-    """Scenes whose node tables exceed the VMEM budget must route to
-    the XLA kernel instead of crashing the Pallas path."""
-    from voxtracer.engine import pipeline as pl_mod
+@pytest.mark.parametrize(
+    "platform,impl", [("gpu", "triton"), ("cpu", "xla"), ("rocm", None)]
+)
+def test_trace_impl_selected_by_platform(platform, impl):
+    """The GPU gets the Triton kernel, the CPU the XLA twin, and any
+    other platform raises instead of silently running a fallback."""
+    from voxtracer.engine.pipeline import select_trace_impl
 
-    monkeypatch.setattr(pl_mod, "PALLAS_TABLE_BUDGET_BYTES", 0)
-    r = Renderer(scene=_tiny_scene(), height=16, width=16,
+    if impl is None:
+        with pytest.raises(ValueError, match="no trace path"):
+            select_trace_impl(platform)
+    else:
+        assert select_trace_impl(platform) == impl
+
+
+def test_renderer_rejects_unknown_trace_impl():
+    with pytest.raises(ValueError, match="unknown trace_impl"):
+        Renderer(scene=_tiny_scene(), height=16, width=16,
                  trace_impl="pallas")
-    assert r.trace_impl == "xla"
-    out = r.render(Camera(position=np.array([0.3, 0.2, -2.0])))
-    assert np.asarray(out["image"]).shape == (16, 16, 3)
 
 
-def test_renderer_keeps_pallas_via_hbm_fine_table(monkeypatch):
-    """When only the packed fine table busts the VMEM budget (march
-    tables still fit), the renderer selects the HBM-resident fine-table
-    Pallas path instead of the ~34x-slower XLA fallback."""
-    from voxtracer.engine import pipeline as pl_mod
+def test_compile_cache_honours_env(monkeypatch, tmp_path):
+    """With JAX_COMPILATION_CACHE_DIR set the helper uses it and sets
+    nothing else."""
+    import jax
 
-    rng = np.random.default_rng(5)
-    n = 256
-    pos = rng.integers(-32, 32, (n, 3)).astype(np.int16)
-    mrgb = np.concatenate(
-        [np.zeros((n, 1), np.uint8),
-         rng.integers(30, 255, (n, 3)).astype(np.uint8)],
-        axis=1,
-    )
-    from voxtracer.scene import GridScene, VoxelList
+    from voxtracer.utils import compile_cache
 
-    scene = GridScene.from_voxels(VoxelList(pos=pos, mrgb=mrgb))
-    t = scene.device_tables()
-    table_bytes = t["packed_idx"].size * 4
-    node_bytes = (t["meta_idx"].size + t["brick_idx"].size) * 4
-    assert 2 * node_bytes < table_bytes, "scene too small for this test"
-    monkeypatch.setattr(
-        pl_mod, "PALLAS_TABLE_BUDGET_BYTES", 2 * node_bytes
-    )
-    r = Renderer(scene=scene, height=16, width=16, trace_impl="pallas")
-    assert r.trace_impl == "pallas_hbm"
-    # swapping to a within-budget scene restores the VMEM-resident path
-    r.set_scene(_tiny_scene())
-    assert r.trace_impl == "pallas"
+    before = jax.config.jax_compilation_cache_dir
+    monkeypatch.setenv("JAX_COMPILATION_CACHE_DIR", str(tmp_path))
+    assert compile_cache.enable_compile_cache() == str(tmp_path)
+    assert jax.config.jax_compilation_cache_dir == before
+
+
+def test_compile_cache_defaults_to_repo_dir(monkeypatch):
+    """Without the variable the cache sits at the fixed <repo>/.jax_cache."""
+    import os
+
+    import jax
+
+    from voxtracer.utils import compile_cache
+
+    monkeypatch.delenv("JAX_COMPILATION_CACHE_DIR", raising=False)
+    before = jax.config.jax_compilation_cache_dir
+    try:
+        got = compile_cache.enable_compile_cache()
+        repo = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+        assert got == os.path.join(repo, ".jax_cache")
+        assert jax.config.jax_compilation_cache_dir == got
+        assert compile_cache.enable_compile_cache() == got  # stable path
+    finally:
+        jax.config.update("jax_compilation_cache_dir", before)
 
 
 def test_param_changes_do_not_retrace():
@@ -379,34 +389,6 @@ def test_ibench_rows_on_cpu():
                              trace_impl="xla")
     assert wall["wall_ms"] > 0 and wall["fetch_ms"] >= 0
     assert "wall_over_device" in wall
-
-
-@pytest.mark.slow
-def test_roofline_model_on_cpu():
-    """The roofline's analytic model assembles from the interpreted
-    kernel counters (~40 s: interpreted Pallas): every term positive
-    where work exists, the
-    serial model at least the optimistic bound, and the ray count
-    matching the phase rows it was built from."""
-    import numpy as np
-
-    from voxtracer.app import camera_paths
-    from voxtracer.app.cli import load_scene
-    from voxtracer.app.roofline import model_config
-
-    scene = load_scene("3x3x3")
-    cam = camera_paths.static(scene)(0.0)
-    rows, model = model_config(scene, cam, 24, 32, interpret=True)
-
-    assert model["rays"] == sum(r["rays"] for r in rows) > 0
-    assert model["steps"] > 0 and model["plane_ops"] > 0
-    assert model["handoffs"] > 0
-    assert model["t_vpu_ms"] > 0 and model["t_sync_ms"] > 0
-    assert model["t_model_ms"] >= model["t_bound_ms"] > 0
-    assert np.isclose(
-        model["t_model_ms"],
-        model["t_vpu_ms"] + model["t_sync_ms"] + model["t_dma_ms"],
-    )
 
 
 def test_web_viewer_polls_watcher():

@@ -2,6 +2,7 @@
 
 import jax.numpy as jnp
 import numpy as np
+import pytest
 
 from voxtracer.engine.camera import Camera
 from voxtracer.engine.params import DenoiseParams
@@ -104,3 +105,14 @@ def test_border_taps_excluded():
     # with zero-padding leakage the corners would darken; they must not
     np.testing.assert_allclose(out[0, 0], 0.8, atol=1e-5)
     np.testing.assert_allclose(out[-1, -1], 0.8, atol=1e-5)
+
+
+@pytest.mark.parametrize("radius", [0, 2, 4, 8])
+def test_denoise_matches_float64_numpy(radius):
+    """The XLA stencil equals the oracle's float64 NumPy denoise over
+    the GUI's radius range, on a noisy G-buffer (mixed normals, depths,
+    materials and misses) with frame-edge taps."""
+    from voxtracer import parity
+
+    gate = parity.denoise_gate(21, 37, radius, seed=radius)
+    assert gate["ok"], gate

@@ -1,11 +1,13 @@
 """Native (C++) scene-build kernels must be bit-identical to numpy."""
 
+import unittest.mock as mock
+
 import numpy as np
 import pytest
 
 from voxtracer import native
-from voxtracer.scene import GridScene, default_scene, voxels_from_vox
-from voxtracer.scene.grid import PALETTE_CAPACITY, _quantize_leaves
+from voxtracer.scene import GridScene, VoxelList, default_scene
+from voxtracer.scene.grid import _quantize_leaves
 from voxtracer.scene.voxels import pack_leaves
 
 
@@ -15,15 +17,6 @@ def lib():
     if lib is None:
         pytest.skip("native toolchain unavailable")
     return lib
-
-
-def _numpy_tables(scene):
-    """Force the numpy fallback paths for comparison."""
-    import unittest.mock as mock
-
-    with mock.patch.object(native, "pack_words", return_value=None), \
-         mock.patch.object(native, "block_dist", return_value=None):
-        return scene.device_tables()
 
 
 def test_fill_grid_matches_numpy(lib):
@@ -39,13 +32,39 @@ def test_fill_grid_matches_numpy(lib):
     np.testing.assert_array_equal(got, ref)
 
 
-def test_device_tables_native_vs_numpy(lib):
-    scene = GridScene.from_voxels(default_scene(radius=12, seed=5))
-    t_native = scene.device_tables()
-    t_numpy = _numpy_tables(scene)
-    np.testing.assert_array_equal(t_native["packed_idx"], t_numpy["packed_idx"])
-    np.testing.assert_array_equal(t_native["palette"], t_numpy["palette"])
-    assert t_native["zw"] == t_numpy["zw"]
+def test_fill_grid_later_duplicates_win(lib):
+    """Repeated positions keep the LAST leaf, like repeated octree
+    insertion; the native fill and the numpy fill agree."""
+    pos = np.array([[0, 0, 0], [1, 2, 3], [0, 0, 0], [1, 2, 3]], np.int16)
+    leaves = np.array([-5, -6, -7, -8], np.int32)
+    dims = (8, 8, 8)
+    got = native.fill_grid(pos, leaves, np.zeros(3, np.int32), dims)
+    assert got[0, 0, 0] == -7 and got[1, 2, 3] == -8
+    assert (got != 0).sum() == 2
+    with mock.patch.object(native, "fill_grid", return_value=None):
+        ref = GridScene.from_voxels(
+            VoxelList(pos=pos, mrgb=np.zeros((4, 4), np.uint8))
+        ).values
+    nat = GridScene.from_voxels(
+        VoxelList(pos=pos, mrgb=np.zeros((4, 4), np.uint8))
+    ).values
+    np.testing.assert_array_equal(nat, ref)
+
+
+def test_quantized_scene_fits_distinct_leaf_budget():
+    """More distinct colors than the exact budget are quantized into it."""
+    from voxtracer.scene import grid
+
+    rng = np.random.default_rng(0)
+    mrgb = np.concatenate(
+        [np.zeros((4000, 1), np.uint8),
+         rng.integers(0, 256, (4000, 3)).astype(np.uint8)], axis=1
+    )
+    q = _quantize_leaves(pack_leaves(mrgb))
+    assert len(np.unique(q)) < grid.MAX_EXACT_LEAVES
+    assert (q < 0).all()
+    small = pack_leaves(mrgb[:100])
+    np.testing.assert_array_equal(_quantize_leaves(small), small)
 
 
 def test_decode_xyzi(lib):

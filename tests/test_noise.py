@@ -53,53 +53,3 @@ def test_bluenoise_small():
     low = spec[(rad < 0.15) & (rad > 0)].mean()
     high = spec[rad > 0.3].mean()
     assert high > 2.0 * low, f"not blue: low {low}, high {high}"
-
-
-def test_noise_quads_match_noise_planes():
-    """The periodic quad table must reproduce noise_planes exactly:
-    quad (qi % P, qj % P) reshaped to the (TILE_H, 128) lane plane is
-    the lane-layout image of pixel block (qi, qj)."""
-    import jax.numpy as jnp
-
-    from voxtracer.ops import trace_pallas as tp
-    from voxtracer.ops.noise import noise_planes, white_noise_buffer
-
-    buf = white_noise_buffer(seed=9, count=32)
-    frame = 5
-    h = w = 256  # 4x4 pixel blocks of BLOCK=64 -> every quad reused
-    planes = noise_planes(buf, frame, h, w)
-    quads = np.asarray(tp.noise_quads(jnp.asarray(buf), jnp.int32(frame)))
-    P = 128 // tp.BLOCK
-    for k in (0, 7, 23):
-        for bi in range(h // tp.BLOCK):
-            for bj in range(w // tp.BLOCK):
-                blockpx = planes[
-                    k,
-                    bi * tp.BLOCK : (bi + 1) * tp.BLOCK,
-                    bj * tp.BLOCK : (bj + 1) * tp.BLOCK,
-                ]
-                lane_plane = blockpx.reshape(tp.TILE_H, tp.TILE_W)
-                np.testing.assert_array_equal(
-                    quads[k, bi % P, bj % P], lane_plane
-                )
-
-
-def test_noise_quads_roll_matches_row_offset():
-    """The sharded path pre-rolls the quads by the slab's global row
-    offset; rolled quads must equal the unrolled quads of a slab whose
-    rows start at that offset."""
-    import jax.numpy as jnp
-
-    from voxtracer.ops import trace_pallas as tp
-    from voxtracer.ops.noise import noise_planes, white_noise_buffer
-
-    buf = white_noise_buffer(seed=2, count=16)
-    frame, row0 = 3, 90  # deliberately NOT a multiple of BLOCK
-    rolled = np.asarray(
-        tp.noise_quads(jnp.asarray(buf), jnp.int32(frame), roll=row0)
-    )
-    planes = noise_planes(buf, frame, row0 + 128, 128)
-    slab = planes[:, row0 : row0 + tp.BLOCK, : tp.BLOCK]  # block (0,0)
-    np.testing.assert_array_equal(
-        rolled[:, 0, 0], slab.reshape(-1, tp.TILE_H, tp.TILE_W)
-    )

@@ -14,7 +14,6 @@ from voxtracer.engine.params import (
     TemporalParams,
 )
 from voxtracer.ops import noise as noise_op
-from voxtracer.ops import trace_pallas as trace_pallas_mod
 from voxtracer.parallel import make_mesh, sharded_render_frame
 from voxtracer.parallel.mesh import scene_device_args
 from voxtracer.scene import GridScene, default_scene
@@ -88,215 +87,17 @@ def test_sharded_matches_single_device(radius):
         )
 
 
-@pytest.mark.slow
-def test_sharded_pallas_post_stages_bitmatch_with_motion():
-    """Two frames with camera motion through the FULL Pallas pipeline
-    under the mesh (fused temporal reprojection + denoise stencil, each
-    fetching row halos from neighbor slabs via ppermute): frame 2's
-    history resample reads rows that live on OTHER devices, and the
-    result must still be bit-identical to the single-device render."""
-    n_dev = len(jax.devices())
-    assert n_dev == 8, "conftest should provide 8 virtual CPU devices"
-    height, width = 64, 128
+@pytest.mark.parametrize("radius", [0, 2])
+def test_sharded_triton_matches_single_device(radius):
+    """The Triton trace runs per row slab under shard_map (4 devices,
+    interpreter on CPU) with the stencils sharded by annotation; two
+    frames with camera motion, so frame 2's reprojection and denoise
+    read rows held by other devices.  Must equal the single-device
+    render."""
+    devices = jax.devices()[:4]
+    height, width = 16, 32
     scene, meta, args = _setup(height, width)
     arrays = args[0]
-
-    cam_a = Camera(
-        position=np.array([0.0, 2.0, -8.0]),
-        direction=np.array([0.0, -0.3, 1.0]),
-    )
-    # a few pixels of reprojection offset, crossing the 8-row slabs
-    cam_b = Camera(
-        position=np.array([0.15, 2.2, -8.1]),
-        direction=np.array([0.02, -0.32, 1.0]),
-    )
-
-    def cam_arr(c):
-        r, u, f = c.axis_scaled(width, height)
-        return jnp.asarray(
-            np.stack([c.position, r, u, f]).astype(np.float32)
-        )
-
-    def run_single():
-        state = pipeline.init_state(height, width)
-        for i, c in enumerate((cam_a, cam_b)):
-            state, out = pipeline.render_frame(
-                state, arrays, cam_arr(c), *args[2:5], args[5],
-                jnp.int32(i + 1),
-                scene_meta=meta, height=height, width=width,
-                radius=2, reproject=True,
-                trace_impl="pallas_interpret",
-            )
-        return out
-
-    def run_sharded():
-        mesh = make_mesh()
-        fn, shard_state = sharded_render_frame(
-            mesh, scene_meta=meta, height=height, width=width,
-            radius=2, reproject=True, trace_impl="pallas_interpret",
-        )
-        state = shard_state(pipeline.init_state(height, width))
-        for i, c in enumerate((cam_a, cam_b)):
-            state, out = fn(
-                state, arrays, cam_arr(c), *args[2:5], args[5],
-                jnp.int32(i + 1),
-            )
-        return out
-
-    single = run_single()
-    sharded = run_sharded()
-    for key in ("image", "linear", "depth", "node"):
-        np.testing.assert_array_equal(
-            np.asarray(single[key]),
-            np.asarray(sharded[key]),
-            err_msg=f"outputs[{key}] differs across pallas sharding",
-        )
-
-
-@pytest.mark.slow
-def test_sharded_whip_pan_any_offset_fallback_bitmatch():
-    """A whip pan whose reprojection offsets exceed the fused kernel's
-    serve window takes the any-offset fallback (resample="xla").  Under
-    the mesh that fallback all-gathers the history planes into every
-    slab and resamples slab-locally — it must bit-match the
-    single-device fallback render (VERDICT r3 next #2; the reference's
-    temporal pass accepts ANY in-frame offset, temporal.comp:92-114)."""
-    n_dev = len(jax.devices())
-    assert n_dev == 8, "conftest should provide 8 virtual CPU devices"
-    height, width = 64, 128
-    scene, meta, args = _setup(height, width)
-    arrays = args[0]
-
-    cam_a = Camera(
-        position=np.array([0.0, 2.0, -8.0]),
-        direction=np.array([0.0, -0.3, 1.0]),
-    )
-    # ~0.5 rad of yaw in one frame: far beyond the serve window in x
-    # AND beyond the slab halos in y
-    cam_b = Camera(
-        position=np.array([0.3, 2.4, -8.2]),
-        direction=np.array([np.sin(0.5), -0.45, np.cos(0.5)]),
-    )
-    # sanity: the offline predictor agrees this is out of window
-    from voxtracer.engine.pipeline import (
-        offsets_exceed_window, predict_path_offsets,
-    )
-
-    def cam_rows(c):
-        r, u, f = c.axis_scaled(width, height)
-        return np.stack([c.position, r, u, f]).astype(np.float32)
-
-    assert offsets_exceed_window(
-        *predict_path_offsets(
-            [cam_rows(cam_a), cam_rows(cam_b)], height, width
-        )
-    )
-
-    def cam_arr(c):
-        return jnp.asarray(cam_rows(c))
-
-    def run_single():
-        state = pipeline.init_state(height, width)
-        for i, c in enumerate((cam_a, cam_b)):
-            state, out = pipeline.render_frame(
-                state, arrays, cam_arr(c), *args[2:5], args[5],
-                jnp.int32(i + 1),
-                scene_meta=meta, height=height, width=width,
-                radius=2, reproject=True, resample="xla",
-                trace_impl="pallas_interpret",
-            )
-        return out
-
-    def run_sharded():
-        mesh = make_mesh()
-        fn, shard_state = sharded_render_frame(
-            mesh, scene_meta=meta, height=height, width=width,
-            radius=2, reproject=True, resample="xla",
-            trace_impl="pallas_interpret",
-        )
-        state = shard_state(pipeline.init_state(height, width))
-        for i, c in enumerate((cam_a, cam_b)):
-            state, out = fn(
-                state, arrays, cam_arr(c), *args[2:5], args[5],
-                jnp.int32(i + 1),
-            )
-        return out
-
-    single = run_single()
-    sharded = run_sharded()
-    for key in ("image", "linear", "depth", "node"):
-        np.testing.assert_array_equal(
-            np.asarray(single[key]),
-            np.asarray(sharded[key]),
-            err_msg=f"outputs[{key}] differs across whip-pan sharding",
-        )
-
-
-@pytest.mark.parametrize("nbl", [2, 17])
-@pytest.mark.parametrize("planar", [False, True])
-def test_cyclic_resort_matches_numpy(nbl, planar):
-    """The cyclic->contiguous G-buffer resort (`pipeline._cyclic_to_contig`,
-    one padded all_to_all between a send scatter and a receive gather)
-    must reproduce the plain row order for any block count — including
-    the ragged case (n_dev does not divide nbl; nbl=17 is the real
-    castle-4K shape: 2176 rows / 8 chips / 16-row blocks)."""
-    from jax.experimental.shard_map import shard_map
-    from jax.sharding import PartitionSpec as P
-
-    n_dev = len(jax.devices())
-    assert n_dev == 8
-    block, width = 4, 6
-    G = n_dev * nbl  # global block count
-    rows = G * block
-    rng = np.random.default_rng(3)
-    x_global = rng.integers(0, 1000, (3, rows, width)).astype(np.float32)
-    if not planar:
-        x_global = x_global[0]
-    rows_axis = x_global.ndim - 2
-
-    # build the cyclically-sharded operand: chip c's contiguous shard
-    # must hold global blocks {bi*n_dev + c}
-    blocks = np.moveaxis(x_global, rows_axis, 0)
-    blocks = blocks.reshape((G, block) + blocks.shape[1:])
-    cyc = np.concatenate([blocks[c::n_dev] for c in range(n_dev)])
-    cyc = cyc.reshape((rows,) + cyc.shape[2:])
-    cyc = np.moveaxis(cyc, 0, rows_axis)
-    mesh = make_mesh()
-    spec = P(None, "rows") if planar else P("rows")
-
-    out = shard_map(
-        lambda x: pipeline._cyclic_to_contig(
-            x, nbl, block, n_dev, "rows", rows_axis=rows_axis
-        ),
-        mesh=mesh,
-        in_specs=(spec,),
-        out_specs=spec,
-        check_rep=False,
-    )(jnp.asarray(cyc))
-    np.testing.assert_array_equal(np.asarray(out), x_global)
-
-
-@pytest.mark.slow
-def test_sharded_pallas_cyclic_layout_bitmatch():
-    """The work-balanced cyclic trace layout (kernel row_stride +
-    all_to_all resort; VERDICT r5 #4 — slabprobe measured a 2.11x
-    contiguous work skew on castle 4K) must be bit-identical to the
-    single-device render through the FULL pipeline, two frames with
-    camera motion so the reprojection history crosses the resorted
-    slabs.  tile_h=2 pins the block to 16 rows so the cyclic
-    granularity divides the test image; nbl=2 per chip exercises the
-    ragged chunk padding (8 does not divide 2)."""
-    import dataclasses
-
-    n_dev = len(jax.devices())
-    assert n_dev == 8
-    height, width = 256, 32
-    knobs = dataclasses.replace(
-        trace_pallas_mod.pick_knobs(height, width), tile_h=2
-    )
-    scene, meta, args = _setup(height, width)
-    arrays = args[0]
-
     cam_a = Camera(
         position=np.array([0.0, 2.0, -8.0]),
         direction=np.array([0.0, -0.3, 1.0]),
@@ -312,82 +113,34 @@ def test_sharded_pallas_cyclic_layout_bitmatch():
             np.stack([c.position, r, u, f]).astype(np.float32)
         )
 
-    def run_single():
-        state = pipeline.init_state(height, width)
-        for i, c in enumerate((cam_a, cam_b)):
-            state, out = pipeline.render_frame(
-                state, arrays, cam_arr(c), *args[2:5], args[5],
-                jnp.int32(i + 1),
-                scene_meta=meta, height=height, width=width,
-                radius=2, reproject=True,
-                trace_impl="pallas_interpret", trace_knobs=knobs,
-            )
-        return out
-
-    def run_cyclic():
-        mesh = make_mesh()
-        fn, shard_state = sharded_render_frame(
-            mesh, scene_meta=meta, height=height, width=width,
-            radius=2, reproject=True, trace_impl="pallas_interpret",
-            layout="cyclic", trace_knobs=knobs,
+    state = pipeline.init_state(height, width)
+    for i, c in enumerate((cam_a, cam_b)):
+        state, single = pipeline.render_frame(
+            state, arrays, cam_arr(c), *args[2:5], args[5],
+            jnp.int32(i + 1), scene_meta=meta, height=height,
+            width=width, radius=radius, reproject=i > 0,
+            trace_impl="triton",
         )
-        state = shard_state(pipeline.init_state(height, width))
-        for i, c in enumerate((cam_a, cam_b)):
-            state, out = fn(
-                state, arrays, cam_arr(c), *args[2:5], args[5],
-                jnp.int32(i + 1),
-            )
-        return out
-
-    single = run_single()
-    cyclic = run_cyclic()
-    for key in ("image", "linear", "depth", "node"):
-        np.testing.assert_array_equal(
-            np.asarray(single[key]),
-            np.asarray(cyclic[key]),
-            err_msg=f"outputs[{key}] differs under the cyclic layout",
+    fns = {
+        r: sharded_render_frame(
+            make_mesh(devices), scene_meta=meta, height=height,
+            width=width, radius=radius, reproject=r, trace_impl="triton",
         )
-
-
-@pytest.mark.slow
-def test_sharded_pallas_matches_single_device():
-    """The flagship Pallas kernel family composes with the mesh: the
-    trace stage runs under shard_map (one row slab per device, params
-    slot 30 carrying the slab's global row) and must reproduce the
-    single-device Pallas render bit-for-bit.  Runs the kernel through
-    the Pallas interpreter (trace_impl="pallas_interpret") since the
-    suite executes on virtual CPU devices."""
-    n_dev = len(jax.devices())
-    assert n_dev == 8, "conftest should provide 8 virtual CPU devices"
-    height, width = 16, 16
-    scene, meta, args = _setup(height, width)
-
-    single = pipeline.render_frame(
-        pipeline.init_state(height, width),
-        *args,
-        scene_meta=meta,
-        height=height,
-        width=width,
-        radius=0,
-        reproject=True,
-        trace_impl="pallas_interpret",
-    )
-
-    mesh = make_mesh()
-    fn, shard_state = sharded_render_frame(
-        mesh,
-        scene_meta=meta,
-        height=height,
-        width=width,
-        radius=0,
-        reproject=True,
-        trace_impl="pallas_interpret",
-    )
-    sharded = fn(shard_state(pipeline.init_state(height, width)), *args)
-
+        for r in (False, True)
+    }
+    state = fns[False][1](pipeline.init_state(height, width))
+    for i, c in enumerate((cam_a, cam_b)):
+        state, sharded = fns[i > 0][0](
+            state, arrays, cam_arr(c), *args[2:5], args[5],
+            jnp.int32(i + 1),
+        )
     for key in ("image", "depth", "node"):
         np.testing.assert_array_equal(
-            np.asarray(single[1][key]),
-            np.asarray(sharded[1][key]),
-            err_msg=f"outputs[{key}] differs across pallas sharding",
+            np.asarray(single[key]),
+            np.asarray(sharded[key]),
+            err_msg=f"outputs[{key}] differs across triton sharding",
         )
+    np.testing.assert_allclose(
+        np.asarray(single["linear"]), np.asarray(sharded["linear"]),
+        atol=1e-6,
+    )

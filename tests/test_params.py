@@ -58,53 +58,3 @@ def test_frame_number_survives_past_f32_precision():
     _roundtrip(2**24 + 1)
     _roundtrip(2**24)
     _roundtrip(2**31 - 1)
-
-
-def test_kernel_rows_match_traced_packs():
-    """The host-packed (KROWS, 128) kernel-param rows must carry the
-    SAME field layout the kernels' traced packers produce (row 1:
-    temporal, row 2: denoise) — layout drift between the host and
-    traced packers would silently misfeed every Pallas stage."""
-    import jax.numpy as jnp
-
-    from voxtracer.engine.params import pack_kernel_rows
-    from voxtracer.ops import denoise_pallas, temporal_pallas
-
-    # a well-conditioned basis: arange rows are coplanar and would
-    # blow up the old-basis inverse
-    cam = np.array(
-        [[1.0, 2.0, -3.0], [0.5, 0.1, 0.0],
-         [-0.1, 0.55, 0.2], [0.3, -0.2, 1.0]], np.float32
-    )
-    old = cam + np.float32(0.125)
-    rp = RenderParams()
-    tp = TemporalParams()
-    dp = DenoiseParams(sigma_distance=2.5, sigma_range=1.25)
-    rows = pack_kernel_rows(cam, old, rp, tp, dp, 9, True, 720)
-
-    cam_t = tuple(jnp.asarray(cam[i]) for i in range(4))
-    old_t = tuple(jnp.asarray(old[i]) for i in range(4))
-    traced = np.asarray(
-        temporal_pallas.pack_temporal_params(
-            cam_t, old_t, tp, jnp.asarray(True),
-            jnp.float32(0.0), jnp.float32(719.0), jnp.float32(0.0),
-        )
-    )
-    # same layout; values equal to f32 rounding (host np vs traced
-    # cross/dot may differ by FMA-contraction ulps on some backends)
-    np.testing.assert_allclose(
-        rows[1], traced[1], rtol=1e-6, atol=1e-7
-    )
-    assert rows.shape == traced.shape
-
-    dvec = denoise_pallas.pack_denoise_row_host(cam, dp)
-    assert dvec[12] == np.float32(2.5)
-    assert dvec[14] == np.float32(dp.albedo_factor)
-    np.testing.assert_array_equal(rows[2, :16], dvec)
-
-    # row 3 carries the frame inputs; unpack reads the LAST row of
-    # either packing
-    cam2, rp2, tp2, dp2, fn2 = unpack_frame_inputs(rows)
-    np.testing.assert_array_equal(np.asarray(cam2), cam)
-    assert int(np.asarray(fn2)) == 9
-    assert float(np.asarray(tp2.sample_blending)) == tp.sample_blending

@@ -1,19 +1,19 @@
-"""Per-ray step-fuse semantics of the Pallas lane queue.
+"""Per-ray step-fuse semantics of the Triton trace kernel.
 
 The reference gives every ray its own 2048-iteration safety fuse
-(``voxels.comp:166-169``): a runaway ray becomes an opaque black leaf
-at its current cell.  The Pallas kernel queues up to Q rays per lane in
-ONE while loop, so the fuse must be enforced PER RAY (a per-lane step
-counter reset at queue swaps) — a shared budget would let one runaway
-ray starve its queue-mates, which would then silently report miss.
+(``voxels.comp:166-169``): a runaway ray becomes an opaque black leaf at
+its current cell.  The kernel marches a whole pixel tile in one loop
+that runs until every lane is done, so the fuse has to count each ray's
+own steps: a runaway ray must not cut its tile-mates short, and a fused
+ray must report the cell it reached, exactly as the XLA twin does.
 
-The corridor scene forces long marches: parallel occupied walls one
-node apart, so the empty-space skip cannot leap (chebyshev distance 1)
-and central rays march brick-by-brick for hundreds of steps, while
-steep rays hit a wall within a few steps — the same lane queue then
-carries both a fusing ray and a quickly-resolving one.
+The corridor scene forces long marches: two occupied walls with an
+empty corridor between, so central rays march cell by cell down its
+length while steep rays hit a wall within a few steps, in the same
+tile.
 """
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -21,30 +21,26 @@ import pytest
 from voxtracer.engine.camera import Camera
 from voxtracer.engine.params import RenderParams
 from voxtracer.ops import noise as noise_op
-from voxtracer.ops import trace_pallas
+from voxtracer.ops import trace_triton, trace_xla
 from voxtracer.scene import GridScene, VoxelList
 
-LEAF_BIT = int(trace_pallas.LEAF_BIT)
-MISS_NODE = int(trace_pallas.MISS_NODE)
+LEAF_BIT = int(trace_xla.LEAF_BIT)
 
 
-def _corridor_scene(length=256, width=16):
+def _corridor_scene(length=128, width=16):
     """Two occupied walls (y=0, y=5) with an empty corridor between,
-    ending in a far wall — every march step crosses at most one node."""
+    ending in a far wall."""
     xs, zs = np.meshgrid(
         np.arange(width, dtype=np.int16),
         np.arange(length, dtype=np.int16),
         indexing="ij",
     )
-    pos = []
-    for y in (0, 5):
-        pos.append(
-            np.stack(
-                [xs.ravel(), np.full(xs.size, y, np.int16), zs.ravel()],
-                axis=1,
-            )
+    pos = [
+        np.stack(
+            [xs.ravel(), np.full(xs.size, y, np.int16), zs.ravel()], axis=1
         )
-    # far wall closes the corridor so axial rays terminate eventually
+        for y in (0, 5)
+    ]
     fx, fy = np.meshgrid(
         np.arange(width, dtype=np.int16),
         np.arange(6, dtype=np.int16),
@@ -52,8 +48,7 @@ def _corridor_scene(length=256, width=16):
     )
     pos.append(
         np.stack(
-            [fx.ravel(), fy.ravel(),
-             np.full(fx.size, length - 1, np.int16)],
+            [fx.ravel(), fy.ravel(), np.full(fx.size, length - 1, np.int16)],
             axis=1,
         )
     )
@@ -63,82 +58,59 @@ def _corridor_scene(length=256, width=16):
     return GridScene.from_voxels(VoxelList(pos=pos, mrgb=mrgb))
 
 
-def _render(scene, cam, h, w, max_ray_steps=None):
-    params = RenderParams()
-    right, up, forward = cam.axis_scaled(w, h)
-    buf = noise_op.white_noise_buffer(seed=3, count=32)
-    t = scene.device_tables()
-    cam_arr = np.stack([cam.position, right, up, forward]).astype(
-        np.float32
-    )
-    pvec = trace_pallas.pack_params(cam_arr, params)
-    nq = trace_pallas.noise_quads(jnp.asarray(buf), jnp.int32(1))
-    out = trace_pallas.render_sample(
-        jnp.asarray(t["packed_idx"]),
-        jnp.asarray(t["meta_idx"]),
-        jnp.asarray(t["brick_idx"]),
-        jnp.asarray(t["palette"]),
-        jnp.asarray(pvec),
-        nq,
-        dims=scene.values.shape,
-        zw=t["zw"],
-        origin=tuple(int(v) for v in scene.origin),
-        n_rows=t["packed_idx"].shape[0],
-        l3_dims=t["l3_dims"],
-        m_rows=t["meta_idx"].shape[0],
-        b_rows=t["brick_idx"].shape[1],
-        height=h,
-        width=w,
-        interpret=True,
-        max_ray_steps=max_ray_steps,
-    )
-    from tests.conftest import gbuf_hwc
-
-    return gbuf_hwc(out)
-
-
-@pytest.mark.slow
-def test_per_ray_fuse_never_starves_queue_mates():
-    scene = _corridor_scene()
-    # camera inside the corridor looking down it: central rays march
-    # the whole length (fusing under a low cap), steep rays hit the
-    # walls within a few steps
+def _render(scene, h, w, impl, max_iterations):
     cam = Camera(
         position=np.array([4.0, 1.5, 1.0]),
         direction=np.array([0.0, 0.0, 1.0]),
     )
-    h, w = 64, 128
-    base = _render(scene, cam, h, w)  # default cap: nothing fuses
+    params = RenderParams()
+    right, up, forward = cam.axis_scaled(w, h)
+    cam_arr = np.stack([cam.position, right, up, forward]).astype(np.float32)
+    buf = noise_op.white_noise_buffer(seed=3, count=32)
+    grid = jnp.asarray(scene.values.reshape(-1))
+    if impl == "triton":
+        out = trace_triton.render_sample(
+            grid, scene.values.shape, tuple(int(v) for v in scene.origin),
+            jnp.asarray(cam_arr), params, jnp.asarray(buf), jnp.int32(1),
+            h, w, interpret=True, max_iterations=max_iterations,
+        )
+    else:
+        fn = jax.jit(
+            trace_xla.render_sample,
+            static_argnames=("dims", "height", "width", "max_iterations"),
+        )
+        out = fn(
+            grid, scene.values.shape,
+            jnp.asarray(scene.origin.astype(np.int32)),
+            *(jnp.asarray(v) for v in cam_arr), params,
+            jnp.asarray(noise_op.noise_planes(buf, 1, h, w)),
+            height=h, width=w, max_iterations=max_iterations,
+        )
+    return {k: np.asarray(v) for k, v in out.items()}
+
+
+@pytest.mark.parametrize("cap", [8, 40])
+def test_fuse_matches_xla_per_ray(cap):
+    """Under a low cap the kernel fuses exactly the rays the XLA twin
+    fuses, at the same cells, and its steep rays still resolve."""
+    scene = _corridor_scene()
+    h, w = 12, 20
+    base = _render(scene, h, w, "triton", trace_xla.MAX_ITERATIONS)
     assert not (base["node"] == LEAF_BIT).any(), (
         "scene must resolve fully at the default per-ray cap"
     )
-    capped = _render(scene, cam, h, w, max_ray_steps=8)
+    got = _render(scene, h, w, "triton", cap)
+    ref = _render(scene, h, w, "xla", cap)
+    np.testing.assert_array_equal(got["node"], ref["node"])
+    np.testing.assert_allclose(got["depth"], ref["depth"], rtol=1e-5,
+                               atol=1e-5)
 
-    # Invariant: a low per-ray cap may only replace a pixel's result
-    # with an EARLIER opaque-black fuse — never with a miss (a miss on
-    # a base-hit pixel is the shared-budget starvation bug) and never
-    # with a different hit.
-    fused = capped["node"] == LEAF_BIT
-    same_node = capped["node"] == base["node"]
-    assert (fused | same_node).all()
-    match = same_node & ~fused
-    np.testing.assert_array_equal(
-        capped["depth"][match], base["depth"][match]
-    )
-    assert fused[capped["depth"] >= 0].any(), "cap must bite somewhere"
-    assert match.sum() > 100, "steep rays must still resolve"
-    # fused rays record the march position at the cap — never beyond
-    # the base ray's resolution
-    hitf = fused & (base["depth"] >= 0)
-    assert (capped["depth"][hitf] <= base["depth"][hitf] + 1e-4).all()
-
-    # Queue-advance witness: with 128-wide images each lane queues the
-    # pixel at (r, c) and its block pair (r, c+64); find lanes where
-    # the FIRST queued ray fused and the second still bit-matches the
-    # uncapped render — the exact case a shared budget breaks.
-    left_fused = fused[:, :64]
-    right_match = match[:, 64:]
-    assert (left_fused & right_match).any(), (
-        "no lane pairs a fused ray-0 with a resolved ray-1; "
-        "scene/camera no longer exercise the queue-advance path"
-    )
+    # a cap may only replace a result with an EARLIER opaque-black fuse,
+    # never with a miss or a different hit
+    fused = got["node"] == LEAF_BIT
+    same = got["node"] == base["node"]
+    assert (fused | same).all()
+    assert fused[got["depth"] >= 0].any(), "cap must bite somewhere"
+    assert (same & ~fused).sum() > 20, "steep rays must still resolve"
+    hit = fused & (base["depth"] >= 0)
+    assert (got["depth"][hit] <= base["depth"][hit] + 1e-4).all()

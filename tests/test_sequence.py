@@ -83,9 +83,6 @@ def test_sequence_matches_sequential_motion():
     outs = []
     for c in cams:
         outs.append(np.asarray(seq.render(c)["image"]))
-        # (no last_resample assertion here: with trace_impl="xla" the
-        # fast-motion predictor never fires, so it would be vacuous —
-        # the pallas_interpret test below carries that check)
     frames = np.asarray(bat.render_sequence(cams))
 
     for i in range(5):
@@ -131,36 +128,6 @@ def test_segment_rle():
     assert Renderer._segments([True]) == [(0, 1, True)]
 
 
-def test_auto_resample_offset_bracketing():
-    """The offline depth-sweep predictor brackets whip-pan offsets
-    (picks the any-offset resampler) but not gentle motion (ADVICE r3
-    medium: --batch quality must not silently diverge)."""
-    from voxtracer.engine.pipeline import (
-        offsets_exceed_window, predict_path_offsets,
-    )
-
-    h, w = 720, 1280
-
-    def rows(cam):
-        r, u, f = cam.axis_scaled(w, h)
-        return np.stack([np.asarray(cam.position), r, u, f]).astype(
-            np.float32
-        )
-
-    # whip pan: 0.4 rad of yaw in one frame at 720p ≈ 200+ px of x
-    a = Camera(position=np.zeros(3), direction=np.array([0.0, 0, 1]))
-    b = Camera(position=np.zeros(3),
-               direction=np.array([np.sin(0.4), 0, np.cos(0.4)]))
-    off = predict_path_offsets([rows(a), rows(b)], h, w)
-    assert offsets_exceed_window(*off)
-
-    # gentle dolly: a few px at worst even at the nearest swept depth
-    c = Camera(position=np.array([0.0, 0, 0.002]),
-               direction=np.array([0.0, 0, 1]))
-    off2 = predict_path_offsets([rows(a), rows(c)], h, w)
-    assert not offsets_exceed_window(*off2)
-
-
 def test_burst_returns_final_frame():
     scene = _tiny_scene()
     r = Renderer(scene=scene, height=16, width=16, trace_impl="xla")
@@ -175,7 +142,7 @@ def test_burst_returns_final_frame():
 
 def test_sequence_after_realtime_frames_continues_accumulation():
     """A batch appended to live realtime history consumes the existing
-    state (history_valid rides in frame 0's packed rows)."""
+    state (history_valid rides in the carried state)."""
     scene = _tiny_scene()
     seq, bat = _pair(scene, trace_impl="xla")
     cam = Camera(position=np.array([0.3, 0.2, -2.0]))
@@ -191,30 +158,14 @@ def test_sequence_after_realtime_frames_continues_accumulation():
 
 
 @pytest.mark.slow
-def test_sequence_pallas_interpret_matches_sequential():
-    """Same invariance through the Pallas kernel family (interpreter).
-
-    Camera motion is kept small (a few px of reprojection offset) so
-    the sequential loop's fast-motion predictor stays on the Pallas
-    resampler — the batched call's static choice."""
+def test_sequence_triton_matches_sequential():
+    """Same invariance through the Triton trace kernel (interpreter)."""
     scene = GridScene.from_voxels(default_scene(radius=6, seed=3))
-    kw = dict(height=64, width=128, trace_impl="pallas_interpret",
-              denoise_radius=1)
+    kw = dict(height=16, width=32, trace_impl="triton", denoise_radius=1)
     seq = Renderer(scene=scene, **kw)
     bat = Renderer(scene=scene, **kw)
-    cams = []
-    for i in range(3):
-        a = 0.02 * i
-        cams.append(
-            Camera(
-                position=np.array([4.0 * np.sin(a), 1.5, -4.0 * np.cos(a)]),
-                direction=np.array([-np.sin(a), -0.3, np.cos(a)]),
-            )
-        )
-    outs = []
-    for c in cams:
-        outs.append(np.asarray(seq.render(c)["image"]))
-        assert seq.last_resample == "pallas"
+    cams = _orbit_cams(3)
+    outs = [np.asarray(seq.render(c)["image"]) for c in cams]
     frames = np.asarray(bat.render_sequence(cams))
     for i in range(3):
         np.testing.assert_array_equal(frames[i], outs[i])

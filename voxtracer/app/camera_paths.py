@@ -1,6 +1,6 @@
 """Scripted camera paths for headless rendering and benchmarks.
 
-The reference is interactively driven (WASD + mouse); headless TPU
+The reference is interactively driven (WASD + mouse); headless
 benchmarking replaces the human with deterministic camera scripts
 (SURVEY §2 "input/camera controller": scripted camera paths for
 headless benches).

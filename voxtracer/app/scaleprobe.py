@@ -1,11 +1,10 @@
-"""Scale probe: a synthetic scene too big for VMEM, traced with the
-HBM-resident fine table (docs/BASELINE_RESULTS.md "Scale").
+"""Scale probe: a large synthetic scene through the normal Renderer.
 
-Builds a dense noisy shell at ``--dims`` (default 480, whose packed
-fine table ~141 MB exceeds the 96 MB VMEM budget so the engine keeps
-it HBM-resident with DMA'd serve windows — engine/pipeline.py), times
-Pallas frames at ``--size``, and optionally (--xla) renders the same
-sample on the XLA fallback path for a node-agreement + speedup check.
+Builds a dense noisy shell at ``--dims`` (default 480: a 442 MB dense
+int32 grid, far beyond every shipped asset), times frames at
+``--size`` on the platform's trace path, and optionally (--xla)
+renders the same sample on the XLA trace for a node-agreement +
+speedup check.
 
 Run: python -m voxtracer.app.scaleprobe [--dims 480] [--xla]
 """
@@ -20,8 +19,7 @@ import numpy as np
 
 def synthetic_shell(dims: int, seed: int = 3) -> "GridScene":
     """A hollow noisy sphere-shell scene of ``dims``^3 extent —
-    enough distinct bricks and occupancy to defeat both the
-    uniform-brick dedup and the VMEM budget at dims >= 480."""
+    a large, non-uniform scene whose colors still fit the palette."""
     from ..scene import grid as grid_mod
     from ..scene.grid import GridScene
 
@@ -58,27 +56,27 @@ def synthetic_shell(dims: int, seed: int = 3) -> "GridScene":
 
 
 def main(argv=None) -> int:
+    import jax
+
     from ..engine.camera import Camera
     from ..engine.pipeline import Renderer
+    from ..utils.compile_cache import enable_compile_cache
 
     p = argparse.ArgumentParser(description=__doc__)
     p.add_argument("--dims", type=int, default=480)
     p.add_argument("--size", default="640x360")
     p.add_argument("--frames", type=int, default=4)
     p.add_argument("--xla", action="store_true",
-                   help="also render one XLA-fallback sample for "
-                        "node agreement + speedup (SLOW: ~42 s at "
-                        "640x360 on one chip)")
+                   help="also render one sample on the XLA trace "
+                        "for node agreement + speedup (slow)")
     args = p.parse_args(argv)
+    enable_compile_cache()
 
     w, h = (int(v) for v in args.size.split("x"))
     t0 = time.perf_counter()
     scene = synthetic_shell(args.dims)
-    t = scene.device_tables()
-    fine_mb = t["packed_idx"].size * 4 / 1e6
     print(f"# scene {args.dims}^3 built in {time.perf_counter()-t0:.1f}s; "
-          f"fine table {t['packed_idx'].shape} = {fine_mb:.0f} MB, "
-          f"meta {t['meta_idx'].shape}, brick {t['brick_idx'].shape}")
+          f"dense grid {scene.values.nbytes / 1e6:.0f} MB")
 
     cam = Camera(
         position=np.array([args.dims * 0.75, args.dims * 0.55,
@@ -90,11 +88,11 @@ def main(argv=None) -> int:
     out = None
     for _ in range(2):
         out = r.render(cam)
-    float(np.asarray(out["depth"]).sum())  # land the warm frames
+    jax.block_until_ready(out)  # land the warm frames
     t0 = time.perf_counter()
     for _ in range(args.frames):
         out = r.render(cam)
-    float(np.asarray(out["depth"]).sum())
+    jax.block_until_ready(out)
     dt = (time.perf_counter() - t0) / args.frames
     print(f"trace_impl={r.trace_impl}: {dt*1e3:.1f} ms/frame "
           f"at {w}x{h}")
@@ -110,7 +108,7 @@ def main(argv=None) -> int:
         op = rp.render(cam)
         npx = np.asarray(op["node"])
         agree = float((nx == npx).mean())
-        print(f"xla fallback: {dtx:.1f} s/frame (cold+run); node "
+        print(f"xla trace: {dtx:.1f} s/frame (cold+run); node "
               f"agreement {agree:.5f}; speedup ~{dtx/dt:.0f}x")
         # Character of the disagreements: on this scene every voxel
         # has a distinct random color, so a 1-ulp tangent-ray cell

@@ -1,8 +1,8 @@
 """Interactive terminal viewer — the winit/egui front end, TUI edition.
 
 The reference presents through a winit window with an egui debug panel
-(``src/main.rs``, ``src/context.rs:1692-1827``).  A TPU pod has no
-display, but any ssh terminal does: frames render to 24-bit ANSI
+(``src/main.rs``, ``src/context.rs:1692-1827``).  A headless GPU
+server has no display, but any ssh terminal does: frames render to 24-bit ANSI
 half-block cells, the fly camera runs on the same key bindings
 (WASD/QE move, arrow keys look — terminals deliver no mouse deltas or
 key-up events, so look is arrow-stepped), and every live slider of the
@@ -39,6 +39,7 @@ import numpy as np
 
 from ..engine.pipeline import Renderer
 from ..utils import FpsCounter
+from ..utils.compile_cache import enable_compile_cache
 from . import camera_paths
 from .cli import available_scenes, load_scene
 from .input import FlyController
@@ -72,8 +73,8 @@ def _halfblock_frame(img: np.ndarray) -> str:
     """(H, W, 3) u8 -> ANSI string, two pixel rows per text row.
 
     Fully vectorized: the per-cell f-string version built ~18k Python
-    strings per 256x144 frame — the terminal front end throttled long
-    before the TPU did (VERDICT r3 weak #7)."""
+    strings per 256x144 frame, and the terminal front end throttled
+    long before the renderer did."""
     h = img.shape[0] - (img.shape[0] % 2)
     top = img[0:h:2]
     bot = img[1:h:2]
@@ -364,8 +365,9 @@ def main(argv=None) -> int:
     p.add_argument("--scene", default="menger")
     p.add_argument("--size", default="192x108")
     p.add_argument("--denoise-radius", type=int, default=0)
-    p.add_argument("--trace-impl", default=None, choices=["pallas", "xla"])
+    p.add_argument("--trace-impl", default=None, choices=["triton", "xla"])
     args = p.parse_args(argv)
+    enable_compile_cache()
     if not sys.stdout.isatty():
         print("viewer needs an interactive terminal", file=sys.stderr)
         return 1

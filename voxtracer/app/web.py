@@ -4,7 +4,7 @@ The reference flies its camera through winit device events and exposes
 every tuning parameter in an egui side panel
 (``src/context.rs:1517-1560`` mouse/keyboard, ``:1692-1827`` sliders).
 A terminal cannot deliver smooth per-pixel mouse deltas or key-up
-events, so the TPU build's interactive parity frontend is a tiny
+events, so the interactive parity frontend is a tiny
 stdlib HTTP server plus one self-contained HTML page:
 
   * pointer-lock mouse-look (0.001 rad/px, exactly the reference's
@@ -331,9 +331,7 @@ class WebViewer:
         # One frame of lookahead: dispatch frame N+1 BEFORE fetching
         # frame N's image, so the (blocking) host fetch overlaps the
         # device's work on the next frame instead of serializing the
-        # pipeline (the CLI measured a per-frame blocking fetch at
-        # 154 ms where the unsynced loop runs 11).  Costs one frame
-        # of display latency.
+        # pipeline.  Costs one frame of display latency.
         last = time.perf_counter()
         pending = None
         stats = self._stats
@@ -354,10 +352,7 @@ class WebViewer:
                     cam = self.ctl.update(min(dt, 0.25))
                 t2 = time.perf_counter()
                 out = self.renderer.render(cam)
-                try:
-                    out["image"].copy_to_host_async()
-                except (AttributeError, NotImplementedError, TypeError):
-                    pass  # backend without async copy
+                out["image"].copy_to_host_async()
                 t3 = time.perf_counter()
                 if pending is not None:
                     self._submit_raw(np.asarray(pending))
@@ -582,6 +577,9 @@ def main(argv=None) -> int:
     p.add_argument("--denoise-radius", type=int, default=2)
     args = p.parse_args(argv)
     w, h = (int(v) for v in args.size.split("x"))
+    from ..utils.compile_cache import enable_compile_cache
+
+    enable_compile_cache()
 
     scenes = available_scenes()
     renderer = Renderer(

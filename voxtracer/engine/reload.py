@@ -21,7 +21,7 @@ from typing import Callable, Dict, Iterable, Optional
 log = logging.getLogger("voxtracer.engine.reload")
 
 WATCHED_MODULES = (
-    "voxtracer.ops.trace_pallas",
+    "voxtracer.ops.trace_triton",
     "voxtracer.ops.trace_xla",
     "voxtracer.ops.temporal",
     "voxtracer.ops.denoise",

@@ -100,7 +100,7 @@ def load(path: str | os.PathLike, renderer: Renderer) -> Camera:
     renderer.still_sample = int(meta["still_sample"])
     renderer.denoise_radius = int(meta["denoise_radius"])
     if meta["trace_impl"] != renderer.trace_impl:
-        # trace_impl is platform-selected (pallas on TPU, xla on CPU);
+        # trace_impl is platform-selected (triton on GPU, xla on CPU);
         # keep the live choice but surface the divergence.
         import logging
 
@@ -123,7 +123,7 @@ def load(path: str | os.PathLike, renderer: Renderer) -> Camera:
     renderer._last_cam = np.stack(
         [np.asarray(cam.position), right, up, forward]
     ).astype(np.float32)
-    # sync the host mirror the packed kernel rows read (the restored
-    # device state carries the authoritative flag)
+    # sync the host mirror the batch paths read (the restored device
+    # state carries the authoritative flag)
     renderer._history_valid = bool(np.asarray(data["history_valid"]))
     return cam

@@ -1,6 +1,6 @@
 """Minimal PNG output (pure stdlib: zlib + struct).
 
-The reference presents frames to a window; headless TPU rendering
+The reference presents frames to a window; headless rendering
 writes them to disk instead.  8-bit RGB/RGBA/grayscale, no filters.
 """
 

@@ -1,7 +1,7 @@
 """ctypes bindings for the native scene-build kernels (libvoxnative).
 
 The reference's host runtime is native Rust; here the host-side hot
-loops (grid fill, word packing, block distance field, XYZI decode) have a C++
+loops (grid fill, XYZI decode) have a C++
 implementation built with ``make -C native``.  Everything degrades
 gracefully: if the library is absent and cannot be built, callers use
 the numpy implementations, which produce identical bits.
@@ -46,12 +46,14 @@ def _build() -> bool:
 
 
 def get() -> Optional[ctypes.CDLL]:
-    """The loaded library, building it on first use; None if unavailable."""
+    """The loaded library, built from the committed ``native/voxnative.cpp``
+    on first use (``make`` is a no-op when the library is current, and
+    rebuilds a stale one); None if unavailable."""
     global _lib, _tried
     if _lib is not None or _tried:
         return _lib
     _tried = True
-    if not os.path.exists(_LIB_PATH) and not _build():
+    if not _build():
         return None
     lib = ctypes.CDLL(_LIB_PATH)
 
@@ -61,12 +63,6 @@ def get() -> Optional[ctypes.CDLL]:
         _i16p, _i32p, i64, i32, i32, i32, i64, i64, i64, _i32p,
     ]
     lib.vox_fill_grid.restype = None
-    lib.vox_pack_words.argtypes = [
-        _i32p, _u8p, i64, i64, i64, _i32p, i64, i64, _i32p,
-    ]
-    lib.vox_pack_words.restype = i64
-    lib.vox_block_dist.argtypes = [_i32p, i64, i64, i64, i32, i32, _u8p]
-    lib.vox_block_dist.restype = None
     lib.vox_decode_xyzi.argtypes = [_u8p, i64, _i16p, _u8p]
     lib.vox_decode_xyzi.restype = None
     _lib = lib
@@ -87,40 +83,6 @@ def fill_grid(pos, leaves, origin, dims) -> Optional[np.ndarray]:
         grid,
     )
     return grid.reshape(dims)
-
-
-def pack_words(grid, dist, cap, reserved) -> Optional[tuple]:
-    lib = get()
-    if lib is None:
-        return None
-    dx, dy, dz = grid.shape
-    zw = -(-dz // 3)
-    palette = np.zeros(cap, np.int32)
-    words = np.zeros(dx * dy * zw, np.int32)
-    g = np.ascontiguousarray(grid, np.int32)
-    d = np.ascontiguousarray(dist, np.uint8)
-    n = lib.vox_pack_words(
-        g.reshape(-1), d.reshape(-1), dx, dy, dz, palette, cap, reserved,
-        words,
-    )
-    if n < 0:
-        raise AssertionError("scene not palettized")
-    return words.reshape(dx * dy, zw).reshape(-1), palette, zw
-
-
-def block_dist(grid, shift, cap) -> Optional[np.ndarray]:
-    """(bx, by, bz) uint8 capped chebyshev block distance field."""
-    lib = get()
-    if lib is None:
-        return None
-    dx, dy, dz = grid.shape
-    bx = ((dx - 1) >> shift) + 1
-    by = ((dy - 1) >> shift) + 1
-    bz = ((dz - 1) >> shift) + 1
-    out = np.zeros(bx * by * bz, np.uint8)
-    g = np.ascontiguousarray(grid, np.int32)
-    lib.vox_block_dist(g.reshape(-1), dx, dy, dz, shift, cap, out)
-    return out.reshape(bx, by, bz)
 
 
 def decode_xyzi(raw: np.ndarray) -> Optional[tuple]:

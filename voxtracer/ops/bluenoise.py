@@ -4,7 +4,7 @@ The reference streams pre-baked blue noise from
 ``resources/blue-noise-128.zip`` (``src/context.rs:1019-1116``) — an
 asset this rebuild regenerates from scratch: Ulichney's void-and-cluster
 method, vmapped over all slices at once so a full 512 x 128 x 128 set
-bakes on one TPU chip in seconds (hours in naive numpy).
+bakes on an accelerator in seconds (hours in naive numpy).
 
 Method per slice:
   1. a random initial binary pattern is relaxed by repeatedly moving the

@@ -8,9 +8,9 @@ angle, and a material-id mismatch penalty (``denoise.comp:64-80``);
 the filtered color is then remodulated by albedo
 (``out = mix(out, albedo * out, albedo_factor)``, ``denoise.comp:90``).
 
-TPU realization: the radius is a static structural parameter, so the
-window is unrolled into shifted dense slices — a stencil of elementwise
-VPU ops XLA can fuse — rather than a per-pixel loop with bounds checks.
+The radius is a static structural parameter, so the window is unrolled
+into shifted dense slices: a stencil of elementwise ops that XLA fuses
+into one loop, rather than a per-pixel loop with bounds checks.
 Out-of-frame taps are excluded by validity masks, matching the
 reference's bounds test.
 """

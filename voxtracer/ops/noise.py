@@ -6,8 +6,9 @@ stays pinned to ``(x % 128, y % 128)`` (``voxels.comp:65-71, 268-275``).
 Because the slice index depends only on (frame, call-number) and the
 offset only on the pixel, a frame's entire randomness is expressible as
 ``count`` dense planes — ``plane[k][y, x] =
-buffer[(frame + 1 + k) % 512, y % 128, x % 128]`` — which on TPU are
-pure dynamic-slice + tile broadcasts: no gathers anywhere in the RNG.
+buffer[(frame + 1 + k) % 512, y % 128, x % 128]``: pure dynamic-slice +
+tile broadcasts, no gathers anywhere in the RNG.  The GPU trace kernel
+reads the same values straight from the buffer.
 
 ``count`` defaults to the engine's fixed consumption schedule
 (8 slots x 3 bounces, see ``voxtracer.oracle.renderer``).

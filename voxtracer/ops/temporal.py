@@ -15,12 +15,8 @@ Two execution strategies, chosen statically by the pipeline:
   accumulation): the reprojection is the identity, so history lookups
   are pure elementwise passthrough.  No gathers; everything fuses.
 * ``reproject=True`` — full resampling with 4-tap bilinear history
-  fetches.  Two resamplers: ``resample_impl="pallas"`` serves taps by
-  distinct integer offset out of a VMEM window
-  (:mod:`voxtracer.ops.reproject_pallas`, ~10x the XLA gather path on
-  TPU; lanes it cannot cover restart accumulation), and
-  ``resample_impl="xla"`` does portable ``jnp.take`` gathers, correct
-  for arbitrary motion.
+  fetches (``jnp.take`` gathers), correct for any in-frame offset
+  (``temporal.comp:92-114``).
 """
 
 from __future__ import annotations
@@ -47,9 +43,8 @@ def _pixel_rays(camera_right, camera_up, camera_forward, height, width,
 def _inv3(m: jnp.ndarray) -> jnp.ndarray:
     """Closed-form (adjugate) 3x3 inverse, like GLSL ``inverse()``.
 
-    ``jnp.linalg.inv`` lowers to a general LU factorization whose TPU
-    compilation is pathologically slow; a cofactor expansion is three
-    cross products and a dot.
+    A cofactor expansion is three cross products and a dot, where
+    ``jnp.linalg.inv`` would lower to a general LU factorization.
     """
     a, b, c = m[:, 0], m[:, 1], m[:, 2]
     r0 = jnp.cross(b, c)
@@ -57,22 +52,6 @@ def _inv3(m: jnp.ndarray) -> jnp.ndarray:
     r2 = jnp.cross(a, b)
     det = jnp.dot(a, r0)
     return jnp.stack([r0, r1, r2], axis=0) / det
-
-
-def _inv3_np(m):
-    """Host numpy twin of :func:`_inv3` (same cofactor expansion, f32)
-    for the host-packed kernel-param rows — values may differ from the
-    traced version by FMA-contraction ulps, which the temporal validity
-    thresholds absorb (parity tests are tolerance-based)."""
-    import numpy as np
-
-    m = np.asarray(m, np.float32)
-    a, b, c = m[:, 0], m[:, 1], m[:, 2]
-    r0 = np.cross(b, c)
-    r1 = np.cross(c, a)
-    r2 = np.cross(a, b)
-    det = np.dot(a, r0)
-    return (np.stack([r0, r1, r2], axis=0) / det).astype(np.float32)
 
 
 def _bilinear(img: jnp.ndarray, x: jnp.ndarray, y: jnp.ndarray) -> jnp.ndarray:
@@ -117,12 +96,11 @@ def temporal_blend_still_planar(
     """PLANAR still-frame blend: :func:`temporal_blend` with
     ``reproject=False``, on (3, H, W) plane stacks.
 
-    The camera at rest is the accumulation steady state of the Pallas
-    production path, which keeps color planar end-to-end — this twin
-    keeps the common case free of layout transposes.  The math is the
-    same elementwise chain (``temporal.comp:99-124`` with the identity
-    reprojection), fully fused by XLA either way; only the broadcast
-    axis differs.  Returns ``(blended (3,H,W), next_blending (H,W))``.
+    The camera at rest is the accumulation steady state, and the
+    carried history is planar.  The math is the same elementwise chain
+    (``temporal.comp:99-124`` with the identity reprojection), fully
+    fused by XLA; only the broadcast axis differs.  Returns
+    ``(blended (3,H,W), next_blending (H,W))``.
     """
     height, width = depth.shape
     origin, right, up, forward = cam
@@ -193,8 +171,7 @@ def temporal_blend(
     old_cam: Tuple[jnp.ndarray, ...],
     params,  # TemporalParams
     history_valid,  # scalar bool (False on the first frame)
-    reproject: bool,  # static
-    resample_impl: str = "xla",  # static: "pallas" (TPU) or "xla"
+    reproject: bool = True,  # static
     row0=None,  # traced: global pixel row of row 0 (sharded slabs)
 ):
     """Returns (blended_color (H,W,3), next_blending (H,W))."""
@@ -206,22 +183,19 @@ def temporal_blend(
     world = origin + depth[..., None] * ray
 
     if reproject:
-        # Reprojected coordinates are GLOBAL image pixels, so bounds
-        # and taps clamp to the HISTORY dims.  Single-device they equal
-        # the current dims; under a mesh the any-offset fallback passes
-        # slab-local current arrays (with ``row0``) against the FULL
-        # all-gathered history (the fused windowed kernel lives in
-        # temporal_pallas and takes halos instead).
+        # Reprojected coordinates are image pixels, so bounds and taps
+        # clamp to the HISTORY dims (equal to the current dims unless
+        # a caller passes a row slab with ``row0`` against the full
+        # history).
         hist_h, hist_w = old_depth.shape
         # world -> old screen: solve columns([right, up, fwd]) @ s = world - o
         basis = jnp.stack([o_right, o_up, o_forward], axis=1)  # 3x3 columns
         inv = _inv3(basis)
         rel = world - o_origin
         # explicit component products, NOT einsum: a dot_general at
-        # default precision runs the MXU in bf16 on TPU (~4e-3
-        # relative), which moves reprojection coords by ~0.2 px —
-        # elementwise VPU math stays exact f32 (and matches the fused
-        # Pallas kernel's arithmetic)
+        # default precision may run in reduced precision (TF32 on the
+        # GPU), which moves reprojection coords by a fraction of a
+        # pixel; elementwise math stays exact f32
         rx, ry, rz = rel[..., 0], rel[..., 1], rel[..., 2]
         s0 = inv[0, 0] * rx + inv[0, 1] * ry + inv[0, 2] * rz
         s1 = inv[1, 0] * rx + inv[1, 1] * ry + inv[1, 2] * rz
@@ -236,37 +210,15 @@ def temporal_blend(
         px_f = tex_x * hist_w
         py_f = tex_y * hist_h
         # one 5-channel history fetch: rgb + blending + depth share the
-        # same 4 bilinear taps (gathers are expensive on TPU)
-        from . import reproject_pallas
-
-        use_pallas = (
-            resample_impl == "pallas"
-            and row0 is None
-            and height >= reproject_pallas.WIN_H
-            and width >= reproject_pallas.WIN_W
+        # same 4 bilinear taps
+        hist5 = _bilinear(
+            jnp.concatenate(
+                [old_color, old_blend[..., None], old_depth[..., None]],
+                axis=-1,
+            ),
+            px_f,
+            py_f,
         )
-        if use_pallas:
-            hist_cwh = jnp.stack(
-                [
-                    old_color[..., 0],
-                    old_color[..., 1],
-                    old_color[..., 2],
-                    old_blend,
-                    old_depth,
-                ]
-            )
-            sampled, ok = reproject_pallas.resample(hist_cwh, px_f, py_f)
-            hist5 = jnp.moveaxis(sampled, 0, -1)
-            in_range = in_range & ok
-        else:
-            hist5 = _bilinear(
-                jnp.concatenate(
-                    [old_color, old_blend[..., None], old_depth[..., None]],
-                    axis=-1,
-                ),
-                px_f,
-                py_f,
-            )
         old_nd = hist5[..., 4]
         # Old ray reconstruction quantizes to the pixel lattice
         # (temporal.comp:99-103); int() truncates toward zero.

@@ -2,7 +2,7 @@
 
 The reference blits the linear denoised image into a
 ``Bgra8UnormSrgb`` swapchain (``src/context.rs:663, 2046-2063``), so the
-hardware applies the sRGB transfer on store.  Headless TPU output
+hardware applies the sRGB transfer on store.  Headless output
 reproduces that conversion explicitly.
 """
 
@@ -22,26 +22,3 @@ def srgb_encode(linear: jnp.ndarray) -> jnp.ndarray:
 
 def to_u8(linear_rgb: jnp.ndarray) -> jnp.ndarray:
     return jnp.round(srgb_encode(linear_rgb) * 255.0).astype(jnp.uint8)
-
-
-def to_u8_planar(linear_rgb: jnp.ndarray) -> jnp.ndarray:
-    """(3, H, W) planar linear color -> (H, W, 3) u8 image.
-
-    The Pallas pipeline keeps color PLANAR end-to-end; the one
-    channels-last interleave the display actually needs happens here,
-    after the quantize to u8 — a 3x-smaller relayout than transposing
-    the f32 planes."""
-    return jnp.moveaxis(to_u8(linear_rgb), 0, -1)
-
-
-def to_u8_planar_cropped(
-    linear_rgb: jnp.ndarray, height: int, width: int
-) -> jnp.ndarray:
-    """(3, hp, wp) tile-padded planar color -> (height, width, 3) u8.
-
-    Cropping AFTER the quantize keeps the crop inside the u8
-    interleave fusion — slicing the f32 planes first materialized
-    ~6 ms of async copies per 4K frame."""
-    return jnp.moveaxis(
-        to_u8(linear_rgb)[:, :height, :width], 0, -1
-    )

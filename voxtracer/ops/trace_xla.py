@@ -2,12 +2,11 @@
 
 Implements exactly the semantics of :mod:`voxtracer.oracle.renderer`
 (itself the semantic twin of ``shaders/voxels.comp``) with JAX ops, so
-it runs under ``jit`` on TPU *and* CPU.  Traversal state lives in flat
+it runs under ``jit`` on any backend.  Traversal state lives in flat
 per-ray arrays advanced by a ``lax.while_loop`` lockstep DDA; voxel
-fetches are ``jnp.take`` gathers.  This is the correctness/portability
-path — the performance path is the Pallas kernel
-(:mod:`voxtracer.ops.trace_pallas`), which must agree with this one
-bit-for-bit on hits and to float tolerance on shading.
+fetches are ``jnp.take`` gathers.  This is the CPU path and the
+reference for the GPU kernel (:mod:`voxtracer.ops.trace_triton`), which
+must agree with it on hits and to float tolerance on shading.
 """
 
 from __future__ import annotations
@@ -24,8 +23,8 @@ RANDS_PER_BOUNCE = 8
 ALMOST_INFINITY = float(1 << 30)
 CELL = 0.5
 RAY_EPS = 1e-5
-# numpy scalars, NOT jnp: jnp scalars are device arrays whose embedding at
-# lowering time forces a (slow, remote) device fetch.
+# numpy scalars, NOT jnp: a jnp scalar is a device array, which lowering
+# would embed as a constant fetched back from the device.
 LEAF_BIT = np.int32(-(1 << 31))
 EMISSIVE_BIT = np.int32(1 << 30)
 MISS_NODE = np.int32(0xFFFFFF)
@@ -68,8 +67,7 @@ def trace_rays(
     """
     n = origins.shape[0]
     # numpy (host) constant: a jnp.array here would be created eagerly on
-    # the device and then fetched back during lowering — slow on remote
-    # backends.
+    # the device and then fetched back during lowering.
     dims_arr = np.array(dims, np.int32)
     world_lo = grid_origin.astype(jnp.float32) * CELL
     world_hi = (grid_origin + dims_arr).astype(jnp.float32) * CELL
@@ -179,12 +177,13 @@ def render_sample(
     noise_planes: jnp.ndarray,  # (24, H, W)
     height: int,
     width: int,
+    max_bounces: int = MAX_BOUNCES,
+    max_iterations: int = MAX_ITERATIONS,
 ) -> Dict[str, jnp.ndarray]:
     """One 1-spp path-traced sample; returns the trace G-buffer."""
     n = height * width
     # broadcasted_iota instead of arange: index grids stay traced values,
-    # so no eager device constants get embedded in the lowered module
-    # (constant embedding forces device round-trips under remote backends).
+    # so no eager device constants get embedded in the lowered module.
     px = jax.lax.broadcasted_iota(jnp.float32, (height, width), 1).reshape(n)
     py = jax.lax.broadcasted_iota(jnp.float32, (height, width), 0).reshape(n)
 
@@ -210,10 +209,11 @@ def render_sample(
     first_normal = jnp.full_like(ray_dir, ALMOST_INFINITY)
     first_time = jnp.full_like(px, -1.0)
 
-    for bounce in range(MAX_BOUNCES):
+    for bounce in range(max_bounces):
         k0 = RANDS_PER_BOUNCE * bounce
         hit, t, node, normal = trace_rays(
-            flat_grid, dims, grid_origin, ray_origin, ray_dir
+            flat_grid, dims, grid_origin, ray_origin, ray_dir,
+            max_iterations,
         )
         hit = hit & path_alive
         hit_pos = ray_origin + t[:, None] * ray_dir
@@ -256,7 +256,8 @@ def render_sample(
         shadow_dir = _normalize(-light_dir).astype(jnp.float32)
         shadow_origin = (hit_pos + RAY_EPS * normal).astype(jnp.float32)
         obstructed, _, _, _ = trace_rays(
-            flat_grid, dims, grid_origin, shadow_origin, shadow_dir
+            flat_grid, dims, grid_origin, shadow_origin, shadow_dir,
+            max_iterations,
         )
         cos_term = jnp.maximum(0.0, jnp.sum(normal * shadow_dir, axis=1))
         sun_on = jnp.asarray(params.sun_strength) > 0

@@ -12,7 +12,7 @@ and the live shader reads ``nodes[8*node + octant]``
 algorithm against the real ABI so it actually renders; that one
 deviation is deliberate and the only one.
 
-TPU mapping: the per-pixel recursion becomes one ``lax.while_loop`` over
+JAX mapping: the per-pixel recursion becomes one ``lax.while_loop`` over
 an explicit ``MAX_DEPTH``-frame stack held in small per-ray arrays,
 ``vmap``-ed over all pixels — XLA batches the loop (runs while any ray
 is active, select-masking finished lanes) so the whole image is a single
@@ -38,7 +38,7 @@ import numpy as np
 
 MAX_DEPTH = 10  # basic.frag:3
 # Safety fuse absent in the fragment shader (a rasterizer thread cannot
-# hang the host; a TPU while_loop can).  Generous: a full traversal
+# hang the host; a device while_loop can).  Generous: a full traversal
 # touches each stacked node at most count+1 <= 5 times.
 MAX_ITERS = 4096
 

@@ -11,7 +11,7 @@ packed node value, ``voxels.comp:394-396``).
 
 It revives the role of the reference's orphaned CPU backend
 (``src/cpu.rs``): a trustworthy host-side implementation used as the
-differential-testing gold standard for the TPU kernels.
+differential-testing gold standard for the device kernels.
 
 Traversal: the reference walks a sparse octree with an explicit stack
 (``voxels.comp:134-247``); this oracle walks the dense grid with an
@@ -21,10 +21,10 @@ safety fuse (``voxels.comp:166``) by returning an opaque black leaf.
 
 Randomness: the reference advances one blue-noise slice per ``rand()``
 call, with a branch-dependent number of calls per bounce
-(``voxels.comp:268-275``).  For TPU-lane uniformity this engine instead
+(``voxels.comp:268-275``).  For lane uniformity this engine instead
 assigns a *fixed slot schedule*: 8 noise planes per bounce —
 [specular-test, sun-axis x/y/z, sun dx, sun dy, hemisphere phi,
-hemisphere x] — all renderers (oracle, XLA, Pallas) consume identical
+hemisphere x] — all renderers (oracle, XLA, Triton) consume identical
 planes, so they are bit-comparable while retaining the per-pixel
 blue-noise property.
 """
@@ -209,7 +209,7 @@ def render_sample(
 
     * ``"slots"`` (default): fixed 8 noise slices per bounce
       (spec test, 3 sun-frame, 2 sun-disk, 2 hemisphere) — the
-      schedule all three renderers (oracle / XLA / Pallas) share, so
+      schedule all three renderers (oracle / XLA / Triton) share, so
       they stay bit-comparable.
     * ``"reference"``: the reference's exact branch-dependent order
       (``voxels.comp:268-275``: one slice per CALL, and a specular
@@ -404,3 +404,70 @@ def render_sample(
         "albedo": albedo.reshape(height, width, 3).astype(np.float32),
         "node": first_node.reshape(shape2),
     }
+
+
+# --------------------------------------------------------------------------
+# Denoise
+# --------------------------------------------------------------------------
+
+def denoise(
+    colors: np.ndarray,  # (H, W, 3)
+    normal: np.ndarray,  # (H, W, 3)
+    depth: np.ndarray,  # (H, W)
+    albedo: np.ndarray,  # (H, W, 3)
+    material: np.ndarray,  # (H, W) int32 packed node (top 8 bits compared)
+    cam,  # origin, right, up, forward (pixel-scaled)
+    params,  # DenoiseParams
+    radius: int,
+    rows=None,  # (y0, y1): filter only these image rows (default: all)
+) -> np.ndarray:
+    """The cross-bilateral denoise of ``shaders/denoise.comp`` in float64:
+    taps outside the frame are skipped, every other tap is weighted by
+    a Gaussian over pixel distance times the edge-stopping term
+    (``denoise.comp:64-80``), then albedo remodulates the result
+    (``denoise.comp:90``).  Returns rows ``y0 .. y1`` of the result."""
+    c = np.asarray(colors, np.float64)
+    h, w = c.shape[:2]
+    y0, y1 = (0, h) if rows is None else rows
+    out = c[y0:y1]
+    if radius > 0:
+        _, right, up, forward = (np.asarray(v, np.float64) for v in cam)
+        nrm = np.asarray(normal, np.float64)
+        py, px = np.mgrid[0:h, 0:w].astype(np.float64)
+        ray = px[..., None] * right - py[..., None] * up + forward
+        ray /= np.linalg.norm(ray, axis=-1, keepdims=True)
+        depth_bias = np.maximum(0.0, (nrm * -ray).sum(-1))
+        with np.errstate(divide="ignore"):
+            logd = np.log(np.abs(np.asarray(depth, np.float64)))
+        mat = np.asarray(material, np.int32) >> 24
+        sd2 = 2.0 * float(params.sigma_distance) ** 2
+        sr2 = 2.0 * float(params.sigma_range) ** 2
+        norm_sum = np.zeros((y1 - y0, w))
+        color_sum = np.zeros((y1 - y0, w, 3))
+        for dy in range(-radius, radius + 1):
+            for dx in range(-radius, radius + 1):
+                # destination rows/cols whose tap (y+dy, x+dx) is in frame
+                ys = slice(max(y0, -dy), min(y1, h - dy))
+                xs = slice(max(0, -dx), min(w, w - dx))
+                if ys.start >= ys.stop or xs.start >= xs.stop:
+                    continue
+                ts = slice(ys.start + dy, ys.stop + dy)
+                tx = slice(xs.start + dx, xs.stop + dx)
+                cd = c[ys, xs] - c[ts, tx]
+                nd = nrm[ys, xs] - nrm[ts, tx]
+                dd = logd[ys, xs] - logd[ts, tx]
+                md = (mat[ys, xs] != mat[ts, tx]).astype(np.float64)
+                factor_range = (
+                    (cd * cd).sum(-1)
+                    + 1e4 * (nd * nd).sum(-1)
+                    + 1e4 * (depth_bias[ys, xs] * dd) ** 2
+                    + 1e4 * md
+                ) / sr2
+                f = np.exp(-factor_range - (dx * dx + dy * dy) / sd2)
+                out_ys = slice(ys.start - y0, ys.stop - y0)
+                norm_sum[out_ys, xs] += f
+                color_sum[out_ys, xs] += f[..., None] * c[ts, tx]
+        out = color_sum / norm_sum[..., None]
+    factor = float(params.albedo_factor)
+    alb = np.asarray(albedo, np.float64)[y0:y1]
+    return out * (1.0 - factor) + alb * out * factor

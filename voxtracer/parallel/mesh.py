@@ -1,25 +1,25 @@
-"""Multi-chip scaling: image-tile data parallelism over a device mesh.
+"""Several devices: image-row data parallelism over a device mesh.
 
 The reference's only parallelism is the GPU's own SIMT grid (16x16
-workgroups, ``src/context.rs:2018-2037``) — single device, no
-communication layer.  The TPU-native scaling axis is sharding the pixel
-dimension of every per-pixel array over a 1-D ``jax.sharding.Mesh``
-("rows"), with the scene, noise buffer and camera replicated:
+workgroups, ``src/context.rs:2018-2037``): one device, no
+communication layer.  Here one frame is split across devices by
+sharding the row dimension of every per-pixel array over a 1-D
+``jax.sharding.Mesh`` ("rows"), with the scene, noise buffer and camera
+replicated.  The cards of one host are joined all to all, so the mesh
+follows the algorithm alone:
 
-  * the path-trace stage is embarrassingly parallel per pixel — no
-    collectives at all on its hot loop;
-  * the temporal resample and the denoise stencil read across row-tile
-    boundaries.  On the Pallas path the WHOLE per-pixel pipeline runs
-    under ``shard_map`` and keeps its single-chip kernels: each stencil
-    stage fetches a fixed row halo from the neighboring slabs with one
-    ``lax.ppermute`` edge exchange (``pipeline._edge_rows``), so a mesh
-    run pays single-chip per-stage cost plus two edge exchanges — and
-    bit-matches the single-device render.  On the portable XLA path the
-    stages are ordinary jnp ops under ``jit`` with sharding
-    annotations, and the SPMD partitioner inserts the halos.
+  * the path-trace stage is embarrassingly parallel per pixel, with no
+    collectives on its hot loop.  XLA cannot partition the Triton
+    kernel's custom call, so on that path each device traces its own
+    row slab under ``shard_map`` (``pipeline._trace``);
+  * the temporal resample and the denoise stencil read across slab
+    boundaries.  The temporal stage is ordinary jnp ops under ``jit``
+    with sharding annotations, and the SPMD partitioner inserts the halo
+    exchanges; the Triton denoise runs per slab under ``shard_map`` on
+    the gathered G-buffer (``pipeline._denoise``).
 
-Scene data is replicated (voxel scenes are tens of MB — far below HBM),
-so the only steady-state ICI traffic is the stencil halos.
+Scene data is replicated (voxel scenes are a few MB), so the only
+steady-state traffic between devices is the stencil halos.
 """
 
 from __future__ import annotations
@@ -59,19 +59,7 @@ def sharded_render_frame(
     radius: int = 0,
     reproject: bool = True,
     trace_impl: str = "xla",
-    resample: str = "pallas",  # "xla": the any-offset whip-pan
-    #   fallback — all-gathers history into each slab (rare-frame cost)
     axis: str = "rows",
-    layout: str = "contiguous",  # "cyclic": balanced trace — each chip
-    #   renders every n-th 16-row block (one launch, kernel row_stride)
-    #   and one all_to_all resorts the G-buffer into contiguous slabs
-    #   for the stencils.  Answers the measured vertical work skew
-    #   (app/slabprobe: castle 4K contiguous max/mean = 2.11x, and
-    #   every per-slab-launch interleaving LOSES to launch overhead).
-    #   Pallas trace only; needs height % (n_dev * block) == 0
-    #   (block = trace_pallas.BLOCK_OF[tile_h]).
-    trace_knobs=None,  # TraceKnobs override (tests pin tile_h so the
-    #   cyclic block granularity divides tiny image heights)
 ):
     """Build a jitted frame function with row-sharded pixel arrays.
 
@@ -85,8 +73,6 @@ def sharded_render_frame(
         raise ValueError(
             f"height {height} must divide evenly over {n_dev} devices"
         )
-    if layout == "cyclic" and not trace_impl.startswith("pallas"):
-        raise ValueError("cyclic layout needs the Pallas trace path")
 
     def spec(p):
         return NamedSharding(mesh, p)
@@ -104,13 +90,10 @@ def sharded_render_frame(
             "normal": spec(P(axis)),
             "albedo": spec(P(axis)),
             "node": spec(P(axis)),
-            "depth_probe": rep,
         },
     )
 
-    # Prefix sharding: replicate every scene array regardless of which
-    # table set (xla dense grid / pallas packed tables) was uploaded.
-    scene_shardings = rep
+    scene_shardings = rep  # every scene array replicated
     fn = jax.jit(
         partial(
             pipeline.render_frame_impl,
@@ -120,14 +103,10 @@ def sharded_render_frame(
             radius=radius,
             reproject=reproject,
             trace_impl=trace_impl,
-            resample=resample,
-            # XLA's partitioner cannot split a Pallas custom call, so
-            # the pallas trace stage runs under shard_map on this mesh
-            # (the xla path shards transparently through annotations).
-            shard_mesh=mesh if trace_impl.startswith("pallas") else None,
+            # the Triton kernels run per slab under shard_map; the XLA
+            # stages shard through annotations
+            shard_mesh=mesh if trace_impl == "triton" else None,
             shard_axis=axis,
-            shard_layout=layout,
-            trace_knobs=trace_knobs,
         ),
         in_shardings=(
             state_shardings,  # state
@@ -151,33 +130,20 @@ def sharded_render_frame(
     return fn, shard_state
 
 
-def scene_device_args(scene, trace_impl: str = "all"):
+def scene_device_args(scene):
     """(scene_meta, scene_arrays) for render_frame from a GridScene.
 
-    ``trace_impl`` selects which device tables to upload: the dense
-    int32 grid is only read by the XLA kernel and can be hundreds of
-    MB (procedural bowl ~285 MB), so ``trace_impl="pallas"`` skips it.
-    ``"all"`` uploads everything (tests, dryruns).
-    """
+    Both trace paths read the dense int32 grid; the XLA trace also
+    takes the grid origin as an array, the Triton kernel as the static
+    ``scene_meta`` entry."""
     import jax.numpy as jnp
 
-    tables = scene.device_tables()
     meta = (
         tuple(int(d) for d in scene.values.shape),
         tuple(int(v) for v in scene.origin),
-        int(tables["zw"]),
-        int(tables["packed_idx"].shape[0]),
-        tuple(int(d) for d in tables["l3_dims"]),
-        int(tables["meta_idx"].shape[0]),
-        int(tables["brick_idx"].shape[1]),
     )
     arrays = {
-        "packed_idx": jnp.asarray(tables["packed_idx"]),
-        "meta_idx": jnp.asarray(tables["meta_idx"]),
-        "brick_idx": jnp.asarray(tables["brick_idx"]),
-        "palette": jnp.asarray(tables["palette"]),
+        "flat_grid": jnp.asarray(scene.values.reshape(-1)),
+        "grid_origin": jnp.asarray(scene.origin.astype(np.int32)),
     }
-    if trace_impl not in ("pallas", "pallas_hbm"):
-        arrays["flat_grid"] = jnp.asarray(scene.values.reshape(-1))
-        arrays["grid_origin"] = jnp.asarray(scene.origin.astype(np.int32))
     return meta, arrays

@@ -7,7 +7,7 @@ consecutive i32 slots.  Slot values: ``0`` empty, ``> 0`` child node
 index, ``< 0`` packed leaf.  Octant index is
 ``4*(x >= cx) + 2*(y >= cy) + (z >= cz)`` (``src/context.rs:726-729``).
 
-The TPU renderer itself traverses the dense :mod:`.grid`; this builder
+The path tracer itself traverses the dense :mod:`.grid`; this builder
 exists for storage-format parity (export/import, differential tests
 against the grid) and is built breadth-first with vectorized numpy
 passes over sorted octant paths instead of per-voxel pointer insertion —

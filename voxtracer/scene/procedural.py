@@ -9,7 +9,7 @@ plus a strip of emissive white voxels along x at (y=-10, z=0).
 
 The reference seeds from the OS (``rand::thread_rng``); we use a seeded
 numpy Generator so scenes are reproducible across runs and across the
-oracle/TPU renderers.  Construction is vectorized column arithmetic
+oracle and device renderers.  Construction is vectorized column arithmetic
 instead of nested x/z loops.
 """
 
